@@ -1,6 +1,6 @@
 // Native host-side spatial/sparse kernels for gprf_tpu.
 //
-// TPU-native replacement for the reference's external C++ dependencies:
+// Replacement for the reference's external C++ dependencies:
 //   * treegp cover-tree fixed-radius queries
 //     (VectorTree.sparse_training_kernel_matrix, reference gprf.py:407,
 //     synthetic.py:125) -> kd-tree range pair enumeration (range_pairs)

@@ -1,6 +1,6 @@
-"""gprf_tpu: TPU-native Gaussian Process Random Fields.
+"""gprf_tpu: Gaussian Process Random Fields in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of davmre/gprf
+A from-scratch JAX/XLA rebuild of the capabilities of davmre/gprf
 (Moore & Russell, "Gaussian Process Random Fields", NIPS 2015).
 
 The reference implements the block-factored GP approximation
@@ -12,7 +12,7 @@ with per-block dense LAPACK linear algebra and hand-coded derivative chain
 rules in C++ (treegp).  Here every block term is a masked, padded Gaussian
 log-density evaluated by one batched Cholesky factorization, vmapped over all
 blocks and all GPRF edges, differentiated end-to-end with jax.grad, and
-shardable over a TPU mesh with shard_map.
+shardable over a device mesh.
 """
 
 from gprf_tpu.kernels.gpcov import GPCov

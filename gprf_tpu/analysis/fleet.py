@@ -7,7 +7,7 @@ inducing-point baselines), and the "fitc" scaling suite (2k-80k points),
 plus :func:`gen_runexp`, which writes one shell command per experiment
 (``run_eighty.sh`` / ``run_truegp.sh`` / ``run_fitc.sh``).  Fleet
 parallelism in the reference is independent shell jobs (``run_cloud.sh``) —
-the same model applies here, one TPU process per experiment.
+the same model applies here, one accelerator process per experiment.
 """
 
 from __future__ import annotations

@@ -101,27 +101,8 @@ def analyze_run(d, sdata, local_dist=1.0, predict=False, X0=None):
         X, None, predict
     )
     results.flush()
-    gprf = sdata.build_gprf(X=X, local_dist=local_dist)
-    ll1 = -np.inf
-    try:
-        # single-block (full GP) included: one masked block term
-        ll1 = gprf.llgrad()[0]
-    except Exception:
-        pass
-    if not np.isfinite(ll1):
-        # very wide blocks (m ~ thousands) can fail on the accelerator
-        # (f64 panel memory); the oracle is a one-off offline eval, so
-        # retry on the CPU backend.  The GPRF must be REBUILT inside the
-        # default_device context — jax.default_device only places newly
-        # created arrays, so retrying with the existing model would re-run
-        # the same accelerator computation on its already-placed arrays.
-        try:
-            import jax
-
-            with jax.default_device(jax.devices("cpu")[0]):
-                ll1 = sdata.build_gprf(X=X, local_dist=local_dist).llgrad()[0]
-        except Exception:
-            pass
+    # single-block (full GP) included: one masked block term
+    ll1 = sdata.build_gprf(X=X, local_dist=local_dist).llgrad()[0]
     s = "trueX inf %.2f %.4f %.4f %.4f %.4f %.4f %.4f %.4f %.4f %.4f" % (
         ll1, c1, l1, l2, smse_local, smse, mlb, mb, mld, md,
     )

@@ -1,10 +1,10 @@
-"""Pairwise scaled distances, differentiable and TPU-friendly.
+"""Pairwise scaled distances, differentiable and batched.
 
 Replaces the treegp ``VectorTree.kernel_matrix(X1, X2, distances_only=True)``
 distance evaluators ("euclidean" and "lld" ``dfn_str``s, reference
 ``gprf.py:109`` / ``run_seismic.py:299``) with pure-JAX batched tensor math:
-the quadratic-expansion euclidean distance rides the MXU via one matmul, and
-the great-circle ("lld") distance is an elementwise haversine (VPU) whose
+the euclidean distance is broadcast arithmetic (or one matmul for wide
+inputs), and the great-circle ("lld") distance is an elementwise haversine whose
 pure-python spec is the reference ``run_seismic.py:19-63`` (``dist_deg`` /
 ``dist_km``) combined with depth as ``sqrt(d_surface^2 + d_depth^2)``
 (``run_seismic.py:230-233``).
@@ -52,11 +52,11 @@ def sq_euclidean(X1, X2, lscales):
 
     For the low-dimensional inputs this framework works with (dx <= 3), the
     broadcast-difference form is used: it is exact in f32 (no catastrophic
-    cancellation) and sidesteps the TPU default of running f32 matmuls at
-    bf16 precision, which corrupts kernel matrices enough (~1e-3) to break
+    cancellation) and involves no matmul, so no reduced-precision f32
+    product (TF32 on the GPU) can corrupt the kernel matrix enough to break
     Cholesky positive-definiteness.  For wide inputs the quadratic expansion
-    ``|u|^2 - 2 u.v + |v|^2`` with an MXU matmul at HIGHEST precision is
-    used instead.
+    ``|u|^2 - 2 u.v + |v|^2`` with a matmul at HIGHEST precision is used
+    instead.
     """
     U = X1 / lscales
     V = X2 / lscales

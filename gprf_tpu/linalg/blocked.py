@@ -1,17 +1,18 @@
 """Blocked (panel) Cholesky and triangular solve in pure JAX.
 
-XLA's monolithic cholesky/triangular_solve kernels exceed the TPU's scoped
-VMEM for wide matrices at float64 (observed at m ~ 1056 f64: "exceeded
-scoped vmem limit").  These right-looking panel versions keep every XLA
-primitive at panel width — the trailing updates become large MXU matmuls,
-which is also the better layout for wide-matrix f32.  Static Python loops
-over panels (shapes are static), batched over leading dims.
+These right-looking panel versions keep every XLA primitive at panel width,
+and the trailing updates become large matmuls.  They were written because
+XLA's monolithic f64 kernels exceeded a scoped-memory limit of an earlier
+accelerator at m ~ 1000; that reason does not hold on the GPU, and whether
+the monolithic cuSOLVER f64 path beats them there is not yet measured.  The
+objective uses them for f64 blocks wider than 512.  Static Python loops over
+panels (shapes are static), batched over leading dims.
 
 ``blocked_cholesky`` carries a custom VJP (the standard Cholesky pullback
 ``dK = sym(L^-T phi(L^T dL) L^-1)`` evaluated with two transposed blocked
 solves): raw autodiff through the panel recursion stores every trailing
-update — ~m^3/panel floats, 24 GB at the full-GP m = 10000 (measured HBM
-OOM on v5e) — while the pullback needs only L and O(m^2) temporaries.
+update — ~m^3/panel floats, 24 GB at the full-GP m = 10000 — while the
+pullback needs only L and O(m^2) temporaries.
 """
 
 from __future__ import annotations
@@ -49,8 +50,7 @@ def blocked_cholesky(K, panel: int = 256):
     """Lower Cholesky of SPD [..., m, m] via recursive 2x2 panel blocks.
 
     Built from slices and concatenations only — no scatter updates, whose
-    autodiff transposes allocate whole-matrix scatter-adds that exceed the
-    TPU scoped-VMEM limit at wide shapes.
+    autodiff transposes allocate whole-matrix scatter-adds at wide shapes.
     """
     return _blocked_cholesky_impl(K, panel)
 

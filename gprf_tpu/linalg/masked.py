@@ -3,7 +3,7 @@
 The reference evaluates each block term with per-block LAPACK calls
 (``pdinv``: dpotrf + dtrtri + dpotri at ``gpy_linalg.py:219-240``, then
 ``dpotrs`` for the solve, inside ``gaussian_llgrad`` at ``gprf.py:496-591``)
-and assembles gradients from an explicit precision matrix.  On TPU the whole
+and assembles gradients from an explicit precision matrix.  Here the whole
 block population lives in one padded ``[B, m, m]`` tensor: ragged blocks are
 masked so padded rows/columns become an identity sub-block, which factors
 trivially, contributes exactly zero to the log-determinant and quadratic

@@ -1,6 +1,6 @@
 """Exact (single-block) Gaussian process regression.
 
-TPU-native equivalent of treegp's ``gp.GP`` as used by the reference for
+Batched-JAX equivalent of treegp's ``gp.GP`` as used by the reference for
 predictive scoring (``gprfopt.py:100-118``, ``prediction_error_gp``): train
 on (X, y) with a GPCov + noise variance, predict means and covariances at
 test inputs.  One Cholesky factorization on device; no cover trees needed —

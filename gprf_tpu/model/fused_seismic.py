@@ -51,7 +51,6 @@ class FusedSeismicGPRF:
         m: int | None = None,
         depth_scale: float = 100.0,
         pair_chunk: int | None = None,
-        use_pallas: bool | None = None,
         mesh=None,
         dtype=None,
     ):
@@ -60,10 +59,6 @@ class FusedSeismicGPRF:
         self.mesh = mesh
         if dtype is None:
             dtype = jnp.float32
-        if use_pallas is None:
-            # the lanes kernels are f32; the f64 refinement tail rides XLA
-            use_pallas = jax.default_backend() == "tpu" and dtype == jnp.float32
-        self.use_pallas = use_pallas
         self.dtype = dtype
         self.Y = jnp.asarray(Y, dtype=self.dtype)
         self.flat = FlatPDTree(tree)
@@ -222,7 +217,6 @@ class FusedSeismicGPRF:
         depth_scale = self.depth_scale
         task = self.task
         pair_chunk = self.pair_chunk
-        use_pallas = self.use_pallas
         mesh = self.mesh
         base_cov = self.cov
         noise_var = self.noise_var
@@ -264,7 +258,7 @@ class FusedSeismicGPRF:
             ll = gprf_ll_schur(
                 params, Y, assignment, mask, edges, uw, pw,
                 dfn_str="lld", wfn_str="matern32", pair_chunk=pair_chunk,
-                use_pallas=use_pallas, mesh=mesh,
+                mesh=mesh,
             )
 
             if task in ("x", "xcov"):

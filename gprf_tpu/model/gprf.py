@@ -32,7 +32,8 @@ _MB = 1024 * 1024
 
 def _auto_chunk(n_items: int, width: int, budget_bytes: int = 512 * _MB) -> int | None:
     """Pick a lax.map batch size so ~10 live [chunk, width, width] f32
-    buffers fit in the budget; None means vmap everything at once."""
+    buffers fit in the budget; None means vmap everything at once.  The
+    budget is a memory bound, not a tuned speed setting."""
     per_item = width * width * 4 * 10
     if n_items * per_item <= budget_bytes:
         return None
@@ -209,7 +210,7 @@ class GPRF:
         grad_X: bool = False,
         grad_cov: bool = False,
         local: bool = True,
-        parallel: bool = False,  # accepted for API parity; TPU path is always batched
+        parallel: bool = False,  # accepted for API parity; the device path always batches
         sparse: bool = False,  # truncated-support sparse path (native Cholesky + Takahashi)
         **_ignored,
     ):
@@ -226,14 +227,9 @@ class GPRF:
             return self._llgrad_kernelized(arrays, grad_X, grad_cov)
         if self.form == "schur":
             # fast default: pair terms factored through the unary Cholesky
-            # (8x fewer factorization flops; Pallas lanes kernels on TPU)
-            params = self._params()
-            use_pallas = (
-                jax.default_backend() == "tpu"
-                and params.X.dtype == jnp.float32
-            )
+            # (8x fewer factorization flops)
             ll, gX, gC = gprf_value_and_grad_schur(
-                params,
+                self._params(),
                 self._Y_dev,
                 arrays["assignment"],
                 arrays["mask"],
@@ -245,7 +241,6 @@ class GPRF:
                 grad_X=grad_X,
                 grad_cov=grad_cov,
                 pair_chunk=self._pair_chunk_for(arrays),
-                use_pallas=use_pallas,
                 mesh=self.mesh,
             )
         else:

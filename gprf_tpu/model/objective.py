@@ -19,8 +19,8 @@ Cholesky replaces the explicit ``pdinv`` precision matrices and per-row C++
 derivative calls (``gprf.py:547-584``).
 
 Edge chunking: for large edge sets the ``[E, 2m, 2m]`` kernel batch is
-processed in ``lax.map`` chunks with rematerialization, bounding peak HBM at
-``chunk * (2m)^2`` while keeping the MXU/VPU busy.
+processed in ``lax.map`` chunks with rematerialization, bounding peak device
+memory at ``chunk * (2m)^2`` while each chunk stays one batched computation.
 """
 
 from __future__ import annotations
@@ -37,32 +37,11 @@ from gprf_tpu.kernels.covfn import cross_kernel_matrix
 from gprf_tpu.kernels.gpcov import GPCov
 from gprf_tpu.linalg.masked import masked_gaussian_ll
 
-# measured-and-lost alternative (kept opt-in for re-measurement, like
-# GPRF_WIDE_LANES): route the pair term through the fused chol+inv kernel +
-# MXU-matmul solve instead of the fused MVN kernel.  15.5 vs 4.8 ms/eval at
-# the flagship config — the explicit inverse is wasted work for a pair
-# block whose factor is used once against dy=50 rhs columns, while the
-# unary factors' inverses are reused by every incident edge.  Read once at
-# import (A/B by running bench.py in a fresh process with the env set).
-_PAIR_CHOLINV = os.environ.get("GPRF_PAIR_CHOLINV", "0") == "1"
-
-# measurement toggle: unary factors via lanes Cholesky + recursive-doubling
-# XLA triangular inverse instead of the fused chol+inv lanes kernel.
-_UNARY_DOUBLING = os.environ.get("GPRF_UNARY_DOUBLING", "0") == "1"
-
-# wide-m (m > 512) lanes-kernel panels instead of the XLA blocked panels —
-# measured SLOWER at the 80k shapes (docs/RESULTS.md); kept for
-# re-measurement.  Like every toggle here: read once at import, A/B by
-# running fresh processes (the jit cache is not keyed on env vars).
-_WIDE_LANES = os.environ.get("GPRF_WIDE_LANES", "0") == "1"
-
-# Schur-form matmul precision (read ONCE at import, like every toggle: the
-# jit cache is not keyed on env vars, so a mid-process flip must not be able
-# to silently produce stale-compiled mixtures — A/B in fresh processes).
-# HIGHEST = 6 bf16 passes per f32 matmul on TPU; "high" (3 passes) is a
-# measurable knob: the Schur algebra tolerates ~2^-21 product error (the
-# noise-variance jitter dominates it), and the distance computations keep
-# their own HIGHEST internally regardless.
+# Schur-form matmul precision, read once at import: the jit cache is not
+# keyed on environment variables, so a mid-process change could mix
+# compilations traced at two precisions.  "highest" keeps every f32 product
+# in full f32 (on the GPU an f32 product may otherwise run in TF32); the
+# distance computations keep their own HIGHEST regardless.
 _SCHUR_PRECISION = os.environ.get("GPRF_SCHUR_PRECISION", "highest")
 
 
@@ -109,7 +88,7 @@ def _shard_batches(
     size with zero-weight dummies (exact: weights are part of the objective)
     and pin them to a 1-d batch sharding — GSPMD then partitions the vmapped
     factorizations across devices and inserts the AllReduce for the scalar
-    and the gradX scatter-add, the TPU equivalent of the reference's
+    and the gradX scatter-add, the device equivalent of the reference's
     process-pool block fan-out (``gprf.py:218-229``)."""
     from jax.sharding import NamedSharding, PartitionSpec
 
@@ -147,7 +126,7 @@ def _shard_batches(
 
 def _schur_ll(
     X, Y, assignment, mask, edges, unary_weights, pair_weights, cov, noise_var,
-    pair_chunk=None, use_pallas=False, mesh=None, mesh_axis="b",
+    pair_chunk=None, mesh=None, mesh_axis="b",
 ):
     """GPRF objective with pair terms factored through the unary Cholesky.
 
@@ -157,18 +136,14 @@ def _schur_ll(
         B = L_i^-1 Kij,  S = Kjj - B^T B,
 
     so each edge needs one m-wide Cholesky (of the Schur complement S), one
-    triangular solve, and one MXU matmul instead of a 2m-wide Cholesky —
-    8x fewer factorization flops, and the L_i come free from the unary
-    terms.  Mathematically identical to the joint form (tested to f64
-    precision); autodiff flows through the shared factors.
-
-    ``use_pallas`` routes both batched factorizations through the
-    batch-in-lanes Pallas kernel (measured ~3x over XLA's cholesky at
-    m=136 on v5e) with its custom VJP; sizes beyond the kernel's VMEM
-    budget fall back to XLA automatically.
+    triangular solve, and one matmul instead of a 2m-wide Cholesky — 8x
+    fewer factorization flops, and the L_i come free from the unary terms.
+    Mathematically identical to the joint form (tested to f64 precision);
+    autodiff flows through the shared factors.
 
     Matmuls run at HIGHEST precision: the Schur complement must stay
-    numerically PSD, and TPU's default bf16 passes are not accurate enough.
+    numerically PSD, and a reduced-precision f32 product (TF32 on the GPU)
+    is not accurate enough for that.
     """
     from gprf_tpu.linalg.masked import pad_kernel_matrix
 
@@ -177,31 +152,15 @@ def _schur_ll(
             mesh, mesh_axis, assignment, mask, unary_weights, edges, pair_weights
         )
 
-    # f64 wide matrices go through panel-blocked primitives: XLA's
-    # monolithic cholesky/triangular_solve exceed scoped VMEM at f64 for
-    # m ~ 1000, and the blocked trailing updates are MXU matmuls anyway.
-    # f32 beyond the split-composition range (m > 1024) uses the native
-    # monolithic kernels instead: the panel recursion's nested
-    # concatenation assembly keeps every level's buffer live — a measured
-    # 24 GB HBM OOM at the full-GP m = 10000 — while XLA's own cholesky is
-    # internally blocked with O(m^2) memory.  A lanes-kernel panel variant
-    # exists (gprf_tpu.linalg.lanes_blocked) but LOSES to the XLA panels
-    # at wide m on v5e (measured 355 vs 156 ms/eval at the 80k shapes:
-    # many small pallas dispatches, half-empty lane tiles) — opt-in.
+    # f64 wide matrices go through panel-blocked primitives with a custom
+    # VJP (linalg/blocked.py).  They were introduced for a scoped-memory
+    # limit of an earlier accelerator that no longer applies; whether XLA's
+    # monolithic f64 cholesky beats them on the GPU is still to be measured.
+    # f32 at every width uses XLA's monolithic kernels, which are internally
+    # blocked with O(m^2) memory (the panel recursion's nested-concat
+    # assembly keeps every level live and runs out of memory at m ~ 10k).
     f64 = jnp.result_type(X.dtype) == jnp.float64
-    m_pad = assignment.shape[1]
-    use_lanes_blocked = use_pallas and not f64 and _WIDE_LANES
-    wide = f64 and m_pad > 512
-
-    if use_lanes_blocked and m_pad > 512:
-        from gprf_tpu.linalg.lanes_blocked import (
-            blocked_cholesky_lanes,
-            blocked_tri_solve_lanes,
-        )
-
-        chol = blocked_cholesky_lanes
-        tri_solve = blocked_tri_solve_lanes
-    elif wide:
+    if f64 and assignment.shape[1] > 512:
         from gprf_tpu.linalg.blocked import blocked_cholesky, blocked_tri_solve
 
         chol = blocked_cholesky
@@ -232,40 +191,9 @@ def _schur_ll(
         Kb = jax.vmap(lambda x: cross_kernel_matrix(cov, x, x))(Xb)
         Kb = Kb + noise_var * eye
         Kp = jax.vmap(pad_kernel_matrix)(Kb, mask)
-        from gprf_tpu.ops.split_mvn import split_supported
-
         Ym = Y[assignment] * maskf[:, :, None]
-        inv_factor = use_pallas and split_supported(m)
-        if inv_factor:
-            # inverse-factor formulation: one batch-in-lanes triangular
-            # inverse per factor batch turns every subsequent "solve" into
-            # an MXU matmul (XLA's batched triangular_solve runs the m
-            # sequential steps with the batch in an outer loop — measured
-            # ~5 ms at [180, 136, 136] vs ~0.3 ms as a matmul).  kappa(L) =
-            # sqrt(kappa(K)) stays small under the noise-variance jitter,
-            # so the explicit inverse is numerically benign here.  The
-            # fused chol+inv kernel produces both factors in one dispatch
-            # and its VJP is einsum-only (no Pallas in the backward).
-            if _UNARY_DOUBLING:
-                # measurement variant: lanes Cholesky + recursive-doubling
-                # XLA inverse (O(log m) sequential depth on the MXU)
-                from gprf_tpu.linalg.doubling import batched_tri_inv_doubling
-                from gprf_tpu.ops.pallas_mvn import batched_cholesky_pallas
-
-                Ls = batched_cholesky_pallas(Kp)
-                Ws = batched_tri_inv_doubling(Ls)
-            else:
-                # beyond the single-kernel VMEM cap (144 < m <= 512, e.g.
-                # the seismic m=192 partition) the call recursively 2x2-
-                # splits into lanes leaves glued by MXU matmuls; at or
-                # below the cap it IS the single fused kernel
-                from gprf_tpu.ops.split_mvn import chol_inv_split
-
-                Ls, Ws = chol_inv_split(Kp)
-            Zs = jnp.einsum("bij,bjd->bid", Ws, Ym)
-        else:
-            Ls = chol(Kp)
-            Zs = tri_solve(Ls, Ym)
+        Ls = chol(Kp)
+        Zs = tri_solve(Ls, Ym)
         quads = jnp.sum((Zs * Zs).astype(acc), axis=(1, 2))
         logdets = 2.0 * jnp.sum(
             jnp.log(jnp.diagonal(Ls, axis1=1, axis2=2)).astype(acc), axis=1
@@ -279,10 +207,6 @@ def _schur_ll(
             return total
 
         # ---- pair pass: Schur complement against the i-side factors
-        # the fused-MVN kernel is VMEM-bounded; 144 < m <= 512 goes through
-        # the 2x2-split composition, larger blocks use XLA
-        pair_pallas = use_pallas and split_supported(m, for_mvn=True)
-
         def pair_batch(edges_c, pw_c):
             ei = edges_c[:, 0]
             ej = edges_c[:, 1]
@@ -290,50 +214,20 @@ def _schur_ll(
                 Xb[ei], Xb[ej]
             )
             Kij = Kij * (maskf[ei][:, :, None] * maskf[ej][:, None, :])
-            if inv_factor:
-                Bm = jnp.einsum("eij,ejk->eik", Ws[ei], Kij)
-            else:
-                Bm = tri_solve(Ls[ei], Kij)
+            Bm = tri_solve(Ls[ei], Kij)
             # Schur complement: padded rows of Kp[ej] are identity and the
             # corresponding Bm columns are zero, so S stays padded-masked
             S = Kp[ej] - jnp.einsum("eki,ekj->eij", Bm, Bm)
             rhs = Ym[ej] - jnp.einsum("eki,ekd->eid", Bm, Zs[ei])
             nbj = jnp.sum(maskf[ej], axis=1)
-            if pair_pallas and not _PAIR_CHOLINV:
-                # ll_pair = (i-side unary pieces) + MVN(S, rhs): the fused
-                # batch-in-lanes kernel computes chol+solve+reductions in
-                # one (2x2-split into lanes leaves when m exceeds its cap)
-                from gprf_tpu.ops.split_mvn import mvn_ll_split
-
-                mvn_s = mvn_ll_split(S, rhs, nbj)
-                pair_ll = unary_ll[ei] + mvn_s.astype(acc)
-            elif pair_pallas:
-                # variant under measurement (GPRF_PAIR_CHOLINV=1): factor S
-                # with the fused chol+inv kernel and do the solve as an MXU
-                # matmul; backward is dispatch-free einsums
-                from gprf_tpu.ops.pallas_mvn import batched_chol_inv_pallas
-
-                Lsc, Wsc = batched_chol_inv_pallas(S)
-                z2 = jnp.einsum("eij,ejd->eid", Wsc, rhs)
-                quadp = quads[ei] + jnp.sum((z2 * z2).astype(acc), axis=(1, 2))
-                logdetp = logdets[ei] + 2.0 * jnp.sum(
-                    jnp.log(jnp.diagonal(Lsc, axis1=1, axis2=2)).astype(acc), axis=1
-                )
-                nbp = nbs[ei] + nbj.astype(acc)
-                pair_ll = (
-                    -0.5 * quadp - 0.5 * dy * logdetp - 0.5 * dy * nbp * _LOG2PI
-                )
-            else:
-                Lsc = chol(S)
-                z2 = tri_solve(Lsc, rhs)
-                quadp = quads[ei] + jnp.sum((z2 * z2).astype(acc), axis=(1, 2))
-                logdetp = logdets[ei] + 2.0 * jnp.sum(
-                    jnp.log(jnp.diagonal(Lsc, axis1=1, axis2=2)).astype(acc), axis=1
-                )
-                nbp = nbs[ei] + nbj.astype(acc)
-                pair_ll = (
-                    -0.5 * quadp - 0.5 * dy * logdetp - 0.5 * dy * nbp * _LOG2PI
-                )
+            Lsc = chol(S)
+            z2 = tri_solve(Lsc, rhs)
+            quadp = quads[ei] + jnp.sum((z2 * z2).astype(acc), axis=(1, 2))
+            logdetp = logdets[ei] + 2.0 * jnp.sum(
+                jnp.log(jnp.diagonal(Lsc, axis1=1, axis2=2)).astype(acc), axis=1
+            )
+            nbp = nbs[ei] + nbj.astype(acc)
+            pair_ll = -0.5 * quadp - 0.5 * dy * logdetp - 0.5 * dy * nbp * _LOG2PI
             return jnp.sum(pw_c.astype(acc) * pair_ll)
 
         if pair_chunk is None or E <= pair_chunk:
@@ -397,7 +291,7 @@ def gprf_ll(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("dfn_str", "wfn_str", "pair_chunk", "use_pallas", "mesh", "mesh_axis"),
+    static_argnames=("dfn_str", "wfn_str", "pair_chunk", "mesh", "mesh_axis"),
 )
 def gprf_ll_schur(
     params: GPRFParams,
@@ -410,7 +304,6 @@ def gprf_ll_schur(
     dfn_str: str = "euclidean",
     wfn_str: str = "se",
     pair_chunk: int | None = None,
-    use_pallas: bool = False,
     mesh=None,
     mesh_axis: str = "b",
 ):
@@ -429,16 +322,16 @@ def gprf_ll_schur(
     )
     return _schur_ll(
         params.X, Y, assignment, mask, edges, unary_weights, pair_weights,
-        cov, params.noise_var, pair_chunk=pair_chunk, use_pallas=use_pallas,
-        mesh=mesh, mesh_axis=mesh_axis,
+        cov, params.noise_var, pair_chunk=pair_chunk, mesh=mesh,
+        mesh_axis=mesh_axis,
     )
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "dfn_str", "wfn_str", "grad_X", "grad_cov", "pair_chunk",
-        "use_pallas", "mesh", "mesh_axis",
+        "dfn_str", "wfn_str", "grad_X", "grad_cov", "pair_chunk", "mesh",
+        "mesh_axis",
     ),
 )
 def gprf_value_and_grad_schur(
@@ -454,7 +347,6 @@ def gprf_value_and_grad_schur(
     grad_X: bool = True,
     grad_cov: bool = False,
     pair_chunk: int | None = None,
-    use_pallas: bool = False,
     mesh=None,
     mesh_axis: str = "b",
 ):
@@ -467,7 +359,7 @@ def gprf_value_and_grad_schur(
         return gprf_ll_schur(
             p, Y, assignment, mask, edges, unary_weights, pair_weights,
             dfn_str=dfn_str, wfn_str=wfn_str, pair_chunk=pair_chunk,
-            use_pallas=use_pallas, mesh=mesh, mesh_axis=mesh_axis,
+            mesh=mesh, mesh_axis=mesh_axis,
         )
 
     if not (grad_X or grad_cov):

@@ -67,8 +67,8 @@ _LOG_2PI = math.log(2.0 * math.pi)
 def _rel_jitter(dtype):
     """Relative diagonal jitter for chol(Kmm).  1e-6 suffices in f64 but
     NaNs the f32 factorization at reference scales (m=2000 inducing points
-    under an SE kernel is numerically low-rank): measured on v5e, jitter
-    1e-6 -> NaN Cholesky, 1e-4 -> clean at either matmul precision."""
+    under an SE kernel is numerically low-rank): jitter 1e-6 gave a NaN
+    f32 Cholesky, 1e-4 a clean one."""
     return 1e-6 if jnp.finfo(dtype).bits >= 64 else 1e-4
 
 
@@ -264,8 +264,8 @@ def _objective_and_grads(X, Z, log_lscale, Y, sv, noise_var, gplvm_type, learn_l
         ls = jnp.exp(log_lscale) * jnp.ones((dx,), dtype=X.dtype)
         cov = GPCov(wfn_params=jnp.asarray([sv], dtype=X.dtype), dfn_params=ls)
         # HIGHEST precision: the Woodbury solves/products feed log(g) and
-        # the quad form; TPU's default bf16 matmul passes inject gradient
-        # noise at n=10k scales that stalls L-BFGS
+        # the quad form; a reduced-precision f32 product (TF32 on the GPU)
+        # injects gradient noise at n=10k scales that stalls L-BFGS
         with jax.default_matmul_precision("highest"):
             if gplvm_type == "sparse":
                 return fitc_mll(X, Z, Y, cov, noise_var)

@@ -2,14 +2,14 @@
 
 The reference's only intra-job parallelism is a fork-based process pool over
 blocks (``gprf.py:218-229``), with each task pickling the whole model.  The
-TPU-native equivalent: the unary block batch ``[B, m]`` and the edge batch
+device-mesh equivalent: the unary block batch ``[B, m]`` and the edge batch
 ``[E, 2m]`` are sharded along their leading axis over a 1-d ``Mesh`` axis
 ``"b"``; X, Y, and the hyperparameters are replicated.  The objective is the
 exact same jit-compiled function as the single-chip path
 (:func:`gprf_tpu.model.objective.gprf_value_and_grad`) — GSPMD partitions
 the vmapped batch automatically from the input shardings, and the
 gather-transpose that produces gradX becomes a local partial scatter-add
-followed by a compiler-inserted AllReduce over "b" (riding ICI).  The same
+followed by a compiler-inserted AllReduce over "b".  The same
 AllReduce covers the scalar objective and the hyperparameter gradients.
 
 Requirements on the layout: both batch sizes must be multiples of the mesh

@@ -3,7 +3,7 @@ fixed-shape device tensors.
 
 The reference keeps blocks as a Python list of index arrays
 (``GPRF.block_idxs``, ``gprf.py:98-102``) and loops over them.  For a
-jit-compiled TPU objective everything must be static-shaped: a layout holds
+jit-compiled objective everything must be static-shaped: a layout holds
 an ``[B, m]`` assignment matrix (padded with index 0 + a validity mask), the
 edge list ``[E, 2]``, per-block neighbor counts, and the precomputed pair
 gather ``[E, 2m]`` — so the whole objective is two vmapped batched Gaussian
@@ -74,8 +74,9 @@ class BlockLayout:
     ) -> "BlockLayout":
         """Build a layout from a ragged partition + edge list.
 
-        ``pad_multiple`` rounds the per-block slot count up for TPU tiling
-        (sublane granularity); ``pad_to`` forces an exact slot count.
+        ``pad_multiple`` rounds the per-block slot count up so that small
+        changes of block size reuse one compiled shape; ``pad_to`` forces an
+        exact slot count.
         """
         B = len(block_idxs)
         sizes = np.array([len(ix) for ix in block_idxs], dtype=np.int32)

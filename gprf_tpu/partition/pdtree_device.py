@@ -70,8 +70,8 @@ class FlatPDTree:
 
     def device_arrays(self, dtype=jnp.float32):
         # one packed node table [N, 2d+3]: a traversal level then costs ONE
-        # dynamic gather instead of five (gathers dominate the re-block's
-        # device time; measured on the 12k seismic step)
+        # dynamic gather instead of five (gathers dominated the re-block's
+        # device time at the 12k seismic step on an earlier accelerator)
         d = self.split_vec.shape[1]
         packed = np.concatenate(
             [

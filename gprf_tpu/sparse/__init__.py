@@ -1,6 +1,6 @@
 """Sparse kernel linear algebra (large-n path).
 
-TPU-native replacement for the reference's cover-tree + CHOLMOD stack
+Native replacement for the reference's cover-tree + CHOLMOD stack
 (``VectorTree.sparse_training_kernel_matrix`` / ``scikits.sparse.cholmod``,
 used at ``gprf.py:378-494`` and ``synthetic.py:115-135``): a native C++
 kd-tree fixed-radius range query builds the sparse kernel pattern, and a

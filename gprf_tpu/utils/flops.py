@@ -6,22 +6,38 @@ shapes: the flagship (B=100, m=136), the seismic partition (m=192), and the
 regressions across ablations, not a hardware counter.  The counted terms
 mirror the fused Schur evaluation (``gprf_tpu/model/objective.py``); the
 reference implements the same math per-block on CPU LAPACK
-(``/root/reference/gprf.py:496-591``).
+(reference ``gprf.py:496-591``).
 """
 
 from __future__ import annotations
 
-# v5e nominal peak: 197 TFLOP/s bf16; f32 via HIGHEST-precision multi-pass
-# lands near 1/4 of that.  MFU is reported against the f32 figure (the
-# objective's compute dtype).
-PEAK_F32_FLOPS = 197e12 / 4
+# Published float32 peaks (FLOP/s), keyed by ``jax.Device.device_kind``.
+# The objective runs its matmuls at HIGHEST precision, i.e. plain f32
+# outside the tensor cores, so the f32 (not TF32) rate is the ceiling.
+# Source: NVIDIA H100 Tensor Core GPU data sheet, SXM part, FP32 column
+# (67 TFLOP/s, dense, at the 700 W power limit).
+PEAK_F32_FLOPS = {
+    "NVIDIA H100 80GB HBM3": 67e12,
+}
+
+
+def peak_f32_flops(device_kind: str) -> float:
+    """Published f32 peak of a device; a device missing from the table is
+    an error, never a default."""
+    try:
+        return PEAK_F32_FLOPS[device_kind]
+    except KeyError:
+        raise ValueError(
+            "no published f32 peak for device kind %r; add it to "
+            "gprf_tpu.utils.flops.PEAK_F32_FLOPS with its source" % device_kind
+        ) from None
 
 
 def model_flops_per_eval(B, m, E, dy, dx, passes=3.0):
     """Analytic FLOP count of one fused Schur objective(+gradient) eval.
 
     Forward terms (per batch element of width m):
-      unary:  kernel build 2 m^2 dx (MXU quadratic expansion) + Cholesky
+      unary:  kernel build 2 m^2 dx (quadratic-expansion matmul) + Cholesky
               m^3/3 + dy-rhs triangular solve m^2 dy
       pair:   Kij build 2 m^2 dx + wide triangular solve m^3 + Schur
               product 2 m^3 + chol(S) m^3/3 + two dy-rhs updates 3 m^2 dy
@@ -35,10 +51,10 @@ def model_flops_per_eval(B, m, E, dy, dx, passes=3.0):
     return passes * (unary + pair)
 
 
-def roofline_str(flops, sec):
-    """'xx GFLOP/s (y.yy% f32 MFU)' for a measured wall time."""
+def roofline_str(flops, sec, device_kind: str):
+    """'xx GFLOP/s (y.yy% of f32 peak)' for a measured wall time."""
     rate = flops / sec
-    return "%.0f GFLOP/s (%.2f%% f32 MFU)" % (
+    return "%.0f GFLOP/s (%.2f%% of f32 peak)" % (
         rate / 1e9,
-        100.0 * rate / PEAK_F32_FLOPS,
+        100.0 * rate / peak_f32_flops(device_kind),
     )

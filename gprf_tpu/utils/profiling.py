@@ -1,7 +1,7 @@
 """Profiling and step-timing utilities.
 
 The reference instruments hot paths with ad-hoc ``time.time()`` deltas
-(``gprf.py:417,432,493``); the TPU-native equivalents are (a) a
+(``gprf.py:417,432,493``); the equivalents here are (a) a
 ``jax.profiler`` trace context producing TensorBoard/Perfetto traces of the
 device timeline, and (b) a lightweight section timer for host-side phase
 accounting in drivers.

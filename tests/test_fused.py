@@ -60,8 +60,8 @@ def test_fused_capacity_growth(rng):
 
 def test_assemble_layout_matches_cumsum_formula(rng):
     """The searchsorted group starts must reproduce cumsum(counts)-counts
-    exactly, including at B > 128 (where the cumsum lowering hit an XLA
-    scoped-VMEM failure on TPU — the reason for the searchsorted form) and
+    exactly, including at B > 128 (where the cumsum lowering once hit a
+    compiler memory limit — the reason for the searchsorted form) and
     with empty and overflowing blocks."""
     import jax.numpy as jnp
 

@@ -94,47 +94,6 @@ def test_blocked_tri_solve_matches(rng):
     )
 
 
-def test_tri_inv_doubling_matches(rng):
-    """Recursive-doubling triangular inverse: exact W L = I across base/level
-    splits (odd base 17 at the flagship m=136, deep doubling at powers of 2),
-    and native autodiff matches the triangular_solve formulation."""
-    import jax
-    from gprf_tpu.linalg.doubling import batched_tri_inv_doubling
-
-    for m in (8, 24, 136, 128):
-        A = rng.normal(size=(2, m, m))
-        K = np.einsum("bij,bkj->bik", A, A) + m * np.eye(m)
-        L = np.linalg.cholesky(K)
-        W = np.asarray(batched_tri_inv_doubling(jnp.asarray(L)))
-        np.testing.assert_allclose(
-            np.einsum("bij,bjk->bik", W, L),
-            np.broadcast_to(np.eye(m), (2, m, m)),
-            rtol=1e-9, atol=1e-10,
-        )
-
-    m = 24
-    A = rng.normal(size=(1, m, m))
-    L = jnp.asarray(np.linalg.cholesky(
-        np.einsum("bij,bkj->bik", A, A) + 10 * m * np.eye(m)
-    ))
-
-    def f_doubling(L):
-        return jnp.sum(batched_tri_inv_doubling(jnp.tril(L)) ** 2)
-
-    def f_ref(L):
-        eye = jnp.broadcast_to(jnp.eye(m, dtype=L.dtype), L.shape)
-        W = jax.lax.linalg.triangular_solve(
-            jnp.tril(L), eye, left_side=True, lower=True
-        )
-        return jnp.sum(W**2)
-
-    np.testing.assert_allclose(float(f_doubling(L)), float(f_ref(L)), rtol=1e-10)
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f_doubling)(L)), np.asarray(jax.grad(f_ref)(L)),
-        rtol=1e-7, atol=1e-9,
-    )
-
-
 def test_blocked_tri_solve_T(rng):
     from gprf_tpu.linalg.blocked import blocked_tri_solve_T
 

@@ -307,57 +307,54 @@ def test_schur_pair_form_matches_joint(rng):
     )
 
 
-def test_schur_pallas_matches_schur(rng):
-    """schur with the Pallas Cholesky backend (interpret via CPU lowering is
-    exercised in test_pallas_ops; here the two backends must agree through
-    the full objective)."""
-    import jax.numpy as jnp
-    from gprf_tpu.model.objective import GPRFParams, gprf_ll_schur
+def _parity_problem(m, kernel, seed=0, dy=3):
+    """Three adjacent blocks of exactly m points in a chain (edges 1-0 and
+    2-1), on the SE/euclidean kernel over the unit square or the
+    Matern-3/2/great-circle kernel over (lon, lat, depth)."""
+    rng = np.random.default_rng(seed)
+    if kernel == "se":
+        X = np.concatenate([
+            rng.uniform(size=(m, 2)) * 0.3 + np.array([0.3 * i, 0.0])
+            for i in range(3)
+        ])
+        cov = GPCov.create([1.0], [0.1, 0.1])
+        nv = 0.01
+    else:
+        X = np.concatenate([
+            np.column_stack([
+                120.0 + 2.0 * i + 2.0 * rng.uniform(size=m),
+                2.0 * rng.uniform(size=m),
+                50.0 * rng.uniform(size=m),
+            ])
+            for i in range(3)
+        ])
+        cov = GPCov.create([1.0], [40.0, 40.0], "lld", "matern32")
+        nv = 0.1
+    Y = rng.normal(size=(3 * m, dy))
+    blocks = [np.arange(i * m, (i + 1) * m) for i in range(3)]
+    return GPRF(X, Y, None, cov, nv, block_idxs=blocks,
+                neighbors=[(1, 0), (2, 1)])
 
-    X, Y, block_idxs, b, cov = _problem(rng, n=30, nblocks=4)
-    neighbors = b.neighbors()
-    g = _mk_gprf(X, Y, block_idxs, cov, 0.01, neighbors)
-    arrays = g.layout.device_arrays()
-    params = GPRFParams(
-        X=jnp.asarray(X, dtype=jnp.float32),
-        wfn_params=jnp.asarray(cov.wfn_params, dtype=jnp.float32),
-        dfn_params=jnp.asarray(cov.dfn_params, dtype=jnp.float32),
-        noise_var=jnp.asarray(0.01, dtype=jnp.float32),
-    )
-    Y32 = jnp.asarray(Y, dtype=jnp.float32)
-    edges = jnp.asarray(g.layout.edges)
-    uw = jnp.asarray(arrays["unary_weights"], dtype=jnp.float32)
-    pw = jnp.asarray(arrays["pair_weights"], dtype=jnp.float32)
-    kw = dict(dfn_str="euclidean", wfn_str="se")
-    ll_x = float(gprf_ll_schur(params, Y32, arrays["assignment"], arrays["mask"], edges, uw, pw, **kw))
-    # interpret=True path can't thread through the static arg here; on CPU the
-    # Pallas call runs via the CPU lowering path when interpret is set inside.
-    # Compare pallas backend in interpret mode by monkeypatching:
-    import gprf_tpu.ops.pallas_mvn as pm
-    orig_mvn = pm.batched_mvn_ll_pallas
-    orig_minv = pm.batched_mvn_ll_inv_pallas
-    orig_chol = pm.batched_cholesky_pallas
-    orig_tinv = pm.batched_tri_inv_pallas
-    orig_cinv = pm.batched_chol_inv_pallas
-    try:
-        pm.batched_mvn_ll_pallas = lambda Kp, Ym, na, interpret=False: orig_mvn(Kp, Ym, na, True)
-        pm.batched_mvn_ll_inv_pallas = lambda Kp, Ym, na, interpret=False: orig_minv(Kp, Ym, na, True)
-        pm.batched_cholesky_pallas = lambda K, interpret=False: orig_chol(K, True)
-        pm.batched_tri_inv_pallas = lambda L, interpret=False: orig_tinv(L, True)
-        pm.batched_chol_inv_pallas = lambda K, interpret=False: orig_cinv(K, True)
-        ll_p = float(
-            gprf_ll_schur(
-                params, Y32, arrays["assignment"], arrays["mask"], edges, uw, pw,
-                use_pallas=True, **kw,
-            )
-        )
-    finally:
-        pm.batched_mvn_ll_pallas = orig_mvn
-        pm.batched_mvn_ll_inv_pallas = orig_minv
-        pm.batched_cholesky_pallas = orig_chol
-        pm.batched_tri_inv_pallas = orig_tinv
-        pm.batched_chol_inv_pallas = orig_cinv
-    assert np.isclose(ll_p, ll_x, rtol=1e-5)
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["se", "matern32_lld"])
+@pytest.mark.parametrize("m", [8, 64, 136, 192])
+def test_schur_matches_joint_oracle(m, kernel, dtype):
+    """The production Schur form (objective, gradX, hyperparameter
+    gradient) against the f64 joint-form oracle, at the flagship (136) and
+    seismic (192) widths.  f32 is held to the tolerances stated in
+    gprf_tpu.model.parity; f64 to roundoff."""
+    from gprf_tpu.model import parity
+
+    g = _parity_problem(m, kernel)
+    assert g.layout.block_pad == m
+    r = parity.schur_parity(g, dtype=jnp.dtype(dtype), cpu_contrast=False)
+    if dtype == "float32":
+        assert r["ok"], r["failures"]
+    else:
+        assert r["device"]["ll"] < 1e-11
+        assert r["device"]["gradX"] < 1e-8
+        assert r["device"]["gradcov"] < 1e-8
 
 
 def test_schur_pair_chunking_matches(rng):
